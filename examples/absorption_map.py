@@ -7,11 +7,10 @@ driven through the stdin parameter server; here the whole grid is one
 vmapped (optionally mesh-sharded) program.
 
 Run (CPU demo):   python examples/absorption_map.py
-Paper scale:      python examples/absorption_map.py paper
+Paper scale:      SLB2D_EXAMPLE_CPU=0 python examples/absorption_map.py paper
                   (BASELINE #2 point shape N=40 M=500, a 16x16
-                  (E_dc, omega) grid on the stacked sweep megakernel's
-                  per-omega mode; run on the TPU — SLB2D_EXAMPLE_CPU=0)
-On a TPU slice:   the mesh line picks up all available devices.
+                  (E_dc, omega) grid; run it on a GPU)
+On several GPUs:  the mesh line picks up all available devices.
 """
 
 import os
@@ -35,8 +34,7 @@ def main():
         cfg = SimConfig(
             display=4, E_dc=0.0, E_omega=1.5, omega=1.0, mu=1.0,
             alpha=0.9495, n_harmonics=40, phi_y_min=-10.0, phi_y_max=10.0,
-            B=0.1, t_start=5.0, g_grid=500, dt=1e-3, quiet=True,
-            impl="pallas")
+            B=0.1, t_start=5.0, g_grid=500, dt=1e-3, quiet=True)
         e_dc = np.linspace(0.0, 3.0, 16)
         omega = np.linspace(6.0, 14.0, 16)
     else:
@@ -56,9 +54,8 @@ def main():
 
     sweep = ParameterSweep(cfg, {"E_dc": E.ravel(), "omega": W.ravel()},
                            mesh=mesh)
-    engine = "stack" if sweep._use_stack_engine() else "vmapped-xla"
     print(f"# {B} points x {sweep.n_steps} steps on {n_dev} device(s) "
-          f"[{engine} engine]", file=sys.stderr)
+          f"[vmapped-xla engine]", file=sys.stderr)
     wall0 = time.perf_counter()
     res = sweep.run()
     wall = time.perf_counter() - wall0

@@ -1,10 +1,9 @@
 """Multi-host absorption-map sweep (DCN scale-out of BASELINE config #5).
 
 The sweep mesh is host-count agnostic: the same ParameterSweep call that
-vmaps a grid on one chip shards it over every chip of a multi-host pod
-slice.  Launch one copy of this script per host; on TPU pods the launcher
-environment provides the coordinator automatically
-(`jax.distributed.initialize()` with no args), elsewhere set:
+vmaps a grid on one device shards it over every device of a multi-host
+cluster.  Launch one copy of this script per host, naming the
+coordinator:
 
     SLB2D_COORD=host0:8476 SLB2D_NPROCS=4 SLB2D_PROC_ID=k \
         python examples/multihost_sweep.py

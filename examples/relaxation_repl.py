@@ -4,9 +4,8 @@ steady state, print the display-4 observable line, then mutate ONE drive
 parameter and continue from the LIVE distribution (it is never reset),
 letting the system relax for `timeout` before averaging restarts.
 
-Here the same protocol drives the TPU engines; the distribution stays
-device-resident across mutations (the pallas engine even reuses its
-compiled kernel — parameters ride an SMEM vector).
+Here the same protocol drives the device engines; the distribution stays
+device-resident across mutations.
 
 Run (CPU demo):   python examples/relaxation_repl.py
 """

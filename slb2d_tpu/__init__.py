@@ -1,8 +1,8 @@
-"""slb2d-tpu: TPU-native superlattice Boltzmann solver (JAX/XLA/Pallas).
+"""slb2d: superlattice Boltzmann solver in JAX.
 
-A ground-up reimplementation of priimak/super-lattice-boltzmann-2d for TPU:
-the finite-difference time-stepping over the (harmonics x phi_y grid)
-distribution arrays runs as fused XLA/Pallas stencils inside lax.scan, with
+A reimplementation of priimak/super-lattice-boltzmann-2d: the
+finite-difference time-stepping over the (harmonics x phi_y grid)
+distribution arrays runs as fused XLA stencils inside lax.scan, with
 vmapped/sharded parameter sweeps as the scale-out axis.
 """
 

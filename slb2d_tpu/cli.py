@@ -1,8 +1,8 @@
 """Command-line entry point: `slb2d key=value ...` or
 `python -m slb2d_tpu.cli key=value ...` — the exact reference CLI surface
-(reference: src/boltzmann_cli.c, README.md:30-66) plus TPU extensions
+(reference: src/boltzmann_cli.c, README.md:30-66) plus extensions
 (impl=, dtype=, steps-per-chunk=, checkpoint=, resume=, profile-dir=,
-compile-cache-dir=).
+compile-cache-dir=, shards=, frame-batch=, warmup=).
 """
 
 from __future__ import annotations

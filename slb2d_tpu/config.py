@@ -2,9 +2,8 @@
 
 Maps 1:1 onto the reference's ``key=value`` command-line surface
 (reference: src/boltzmann_cli.c:93-189) plus the stdin parameter-server
-protocol (src/boltzmann_cli.c:71-91).  TPU-specific extensions (impl,
-dtype, steps-per-chunk, ...) are additive and default to reference
-behavior.
+protocol (src/boltzmann_cli.c:71-91).  Extensions (impl, dtype,
+steps-per-chunk, ...) are additive and default to reference behavior.
 """
 
 from __future__ import annotations
@@ -48,31 +47,24 @@ class SimConfig:
     out_file: str = "-"       # CLI "o"; "-"/"stdout", "stderr", "+file" appends
     read_from: Optional[str] = None   # only "stdin" supported, like reference
 
-    # ---- TPU-native extensions (not present in the reference CLI) ----
-    impl: str = "auto"        # {"auto", "xla", "pallas", "stream"} stepper
-                              # implementation; "pallas" picks the VMEM
-                              # megakernel or the HBM-streaming kernel by
-                              # grid size, "stream" forces the latter
+    # ---- extensions (not present in the reference CLI) ----
+    impl: str = "auto"        # {"auto", "xla"}: both the XLA scan engine
+                              # (utils/env.plan)
     dtype: str = "f32"        # {"f32", "f64"}; reference is float32 (src/boltzmann.h:15)
     exact_time: bool = True   # replicate the C solver's float32 `t += dt` accumulation
     steps_per_chunk: int = 0  # 0 = auto; max scan steps between host syncs
     checkpoint: Optional[str] = None   # save final state to .npz
     resume: Optional[str] = None       # load initial state from .npz
     profile_dir: Optional[str] = None  # jax.profiler trace output
-    compile_cache_dir: Optional[str] = None  # persistent XLA/Mosaic
-                             # executable cache: repeat runs of one shape
-                             # skip the cold compile (jax compilation
-                             # cache directory)
+    compile_cache_dir: Optional[str] = None  # persistent compilation
+                             # cache directory (JAX_COMPILATION_CACHE_DIR
+                             # wins; default .jax_cache/ at the repo root)
     shards: int = 1          # spatial shards of the phi_y axis over a
                              # "space" device mesh (halo exchange via
                              # ppermute; observables via psum)
     frame_batch: int = 8     # frame/strobe emissions accumulated on
                              # device per host transfer (displays 7 and
                              # 9; 1 = write per emission)
-    unroll: int = 0          # pallas megakernel manual unroll factor
-                             # (0 = size-gated auto).  unroll=4 halves the
-                             # one-time Mosaic compile at the flagship
-                             # shape for ~4.5% steady-state (docs/PERF.md)
     warmup: bool = False     # compile every step runner before the timed
                              # run (Simulation.warmup)
 
@@ -120,7 +112,6 @@ _KEYMAP = {
     "compile-cache-dir": ("compile_cache_dir", str),
     "shards": ("shards", int),
     "frame-batch": ("frame_batch", int),
-    "unroll": ("unroll", int),
     "warmup": ("warmup", lambda v: v not in ("0", "false", "no")),
 }
 
@@ -187,8 +178,8 @@ def validate(cfg: SimConfig):
              "it must be greater than 0.")
     if cfg.read_from is not None and cfg.read_from != "stdin":
         _die("ERROR: Invalid value of read-from=")
-    if cfg.impl not in ("auto", "xla", "pallas", "stream"):
-        _die("ERROR: impl= must be one of auto, xla, pallas, stream.")
+    if cfg.impl not in ("auto", "xla"):
+        _die("ERROR: impl= must be auto or xla.")
     if cfg.dtype not in ("f32", "f64"):
         _die("ERROR: dtype= must be f32 or f64.")
     if cfg.g_grid < 3:
@@ -197,27 +188,22 @@ def validate(cfg: SimConfig):
         _die("ERROR: n-harmonics must be >= 1.")
     if cfg.shards < 1:
         _die("ERROR: shards= must be >= 1.")
-    if cfg.unroll < 0:
-        _die("ERROR: unroll= must be >= 1 (or 0 for auto).")
 
 
 def apply_jax_options(cfg: SimConfig):
     """Process-level jax options derived from the config, shared by the
     slb2d and slb2d-sweep entry points.
 
-    x64 only for float64 mode: the Pallas kernel (and TPU generally)
-    wants a pure-i32/f32 world.  Never force it OFF — the embedding
-    process (tests) may legitimately run with x64 on.
-    compile-cache-dir= enables jax's persistent executable cache so
-    repeat runs of one shape skip the cold XLA/Mosaic compile (the
-    Mosaic kernel payload is compiled inside the XLA executable, so it
-    caches with it)."""
+    x64 only for float64 mode; never forced OFF — the embedding process
+    (tests) may legitimately run with x64 on.  The persistent compilation
+    cache goes where utils/env.compile_cache_dir says, so repeat runs of
+    one shape skip the cold compile."""
     import jax
+
+    from .utils import env
     if cfg.dtype == "f64":
         jax.config.update("jax_enable_x64", True)
-    if cfg.compile_cache_dir:
-        jax.config.update("jax_compilation_cache_dir",
-                          cfg.compile_cache_dir)
+    env.apply_compile_cache(cfg.compile_cache_dir)
 
 
 def open_out(cfg: SimConfig) -> IO[str]:

@@ -1,8 +1,8 @@
 """Modified Bessel functions of the first kind, integer order.
 
 The reference links GSL for ``gsl_sf_bessel_In`` (reference: GNUmakefile:18,
-src/boltzmann_c_solver.c:118).  On the TPU stack we only need these on the
-host, in float64, at configuration time — scipy when present, else a pure
+src/boltzmann_c_solver.c:118).  We only need these on the host, in
+float64, at configuration time — scipy when present, else a pure
 power-series evaluation (converges for all x >= 0 we care about; terms are
 computed in log space to avoid overflow).
 """

@@ -6,9 +6,9 @@ phi_x; the solver state is two real arrays a[n, m], b[n, m] over harmonics
 n in [0, N] and a uniform phi_y grid of M cells (reference:
 src/boltzmann_c_solver.c:100-122).
 
-TPU layout: arrays are (NHP, MP) with the harmonic axis padded to a sublane
-multiple and the phi_y axis padded to a lane multiple of 128, so stencil
-rolls and row reductions stay tile-aligned.  The reference's CUDA row
+Layout: arrays are (NHP, MP) with the harmonic axis padded to a multiple
+of 8 and the phi_y axis padded to a multiple of 128, so rows stay aligned
+and kernel column tiles divide the grid.  The reference's CUDA row
 padding to 128 bytes (src/boltzmann_solver.c:102) is the same idea one
 level down.
 

@@ -2,8 +2,8 @@
 
 f(phi_x, phi_y) = sum_n a_n cos(n phi_x) + b_n sin(n phi_x), evaluated on
 the reference's phi_x grid (float accumulation from -PI by 0.01,
-src/boltzmann_c_solver.c:341) — a dense (X, NH) x (NH, M) matmul, i.e. MXU
-work on TPU, against the reference's per-point (N+1)-length scalar loops.
+src/boltzmann_c_solver.c:341) — a dense (X, NH) x (NH, M) matmul, against
+the reference's per-point (N+1)-length scalar loops.
 """
 
 from __future__ import annotations
@@ -59,8 +59,8 @@ class FrameReconstructor:
 
     def reconstruct_on_device(self, a, b, m_lo: int, m_hi: int,
                               fetch=True):
-        """MXU reconstruction for device-resident f32 states: one einsum on
-        the chip plus the norm row-sum — one small transfer instead of
+        """Reconstruction for device-resident f32 states: one matmul on
+        the device plus the norm row-sum — one small transfer instead of
         moving a and b to the host.  With fetch=False the device arrays
         (F, norm_sum) are returned un-materialized so the caller can fetch
         them from an IO thread, overlapping with the next compute chunk
@@ -72,9 +72,10 @@ class FrameReconstructor:
             sin_t = jnp.asarray(self.sin_t.astype(np.float32))
             w_norm = jnp.asarray(self.model.w_norm.astype(np.float32))
 
-            # Precision.HIGHEST: the TPU MXU's default one-pass matmul
-            # truncates f32 operands to bf16, which would cost frame values
-            # and the printed norm ~3 significant digits
+            # Precision.HIGHEST: a default-precision f32 matmul may run
+            # in TF32 on the GPU's tensor cores (10-bit mantissa), which
+            # would cost frame values and the printed norm ~3 significant
+            # digits; HIGHEST keeps full float32 products
             hp = jax.lax.Precision.HIGHEST
 
             def f(a, b):

@@ -3,8 +3,9 @@
 The scale-out axes of this solver (SURVEY.md §2.2): "sweep" — data-parallel
 over parameter sets (the genuinely new capability vs the reference's serial
 stdin parameter server) — and "space" — sharding the phi_y grid with halo
-exchange for grids too large for one chip.  Both ride ICI collectives via
-jax.sharding; there is no NCCL/MPI analogue to port.
+exchange for grids too large for one device.  Both are jax.sharding
+collectives, which XLA hands to NCCL on GPUs; the reference has no
+multi-device analogue to port.
 """
 
 from __future__ import annotations
@@ -40,12 +41,13 @@ def default_split(n: int) -> tuple[int, int]:
 
 def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None):
-    """Initialize jax.distributed for multi-host meshes (DCN).
+    """Initialize jax.distributed for multi-process meshes.
 
-    Single-host single-chip environments (this box) skip silently; on a
-    pod slice the standard env vars or explicit arguments apply.  Sweep
-    grids shard across hosts exactly like across chips — the mesh code in
-    this package is host-count agnostic.
+    Give the coordinator address (host:port), the process count and this
+    process's id; where no cluster can be found (a single process) it
+    returns False and the run stays single-process.  Sweep grids shard
+    across processes exactly like across devices — the mesh code in this
+    package is process-count agnostic.
     """
     import jax
     try:

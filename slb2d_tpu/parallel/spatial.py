@@ -4,13 +4,13 @@ For grids beyond single-chip comfort, state arrays (NHP, MP) are sharded
 along m over the "space" mesh axis.  The stencil's m±1 reads become local
 rolls whose one wrapped edge column is patched with the neighbor's boundary
 column via `jax.lax.ppermute` — a 1-column (NHP,) message per direction per
-half-step, riding ICI.  Observable reductions become shard-local partial
+half-step.  Observable reductions become shard-local partial
 sums + `jax.lax.psum`.  The math itself is ops/stencil.full_step unchanged
 (shift and sum_m are injected), so spatial runs are numerically identical
 to single-device runs up to reduction ordering.
 
 The reference has no multi-device analogue (SURVEY.md §2.3: its only
-"transport" is cudaMemcpy); this is new TPU capability.
+"transport" is cudaMemcpy); this is new capability.
 """
 
 from __future__ import annotations

@@ -1,13 +1,11 @@
 """Command-line parameter sweeps: `slb2d-sweep` / `python -m
 slb2d_tpu.sweep_cli`.
 
-The TPU-native replacement for driving the reference's stdin parameter
-server from a shell script point-by-point: a whole grid runs as one
-device program (BASELINE config #5, absorption maps) — the sublane-
-stacked VMEM-resident sweep megakernel (ops/sweep_stack.py; 1.72x the
-vmapped engine; omega axes ride its per-omega mode), sharded over pure
-"sweep" meshes, or the vmapped XLA engine for space meshes, f64 and
-oversized points.
+The replacement for driving the reference's stdin parameter server from
+a shell script point-by-point: a whole grid runs as one device program
+(BASELINE config #5, absorption maps) — the vmapped XLA scan of
+parallel/sweep.py, optionally sharded over a "sweep" device mesh (and a
+"space" mesh axis for each point's phi_y grid).
 
 Usage: the regular solver `key=value` arguments (display is ignored; sweeps
 are display-4 semantics) plus any number of

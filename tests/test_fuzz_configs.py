@@ -57,7 +57,7 @@ EDGE_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", [_case(s) for s in range(4)] + EDGE_CASES)
+@pytest.mark.parametrize("case", [_case(s) for s in range(8)] + EDGE_CASES)
 def test_stepper_tracks_transcription(case):
     n_steps = 120
     cfg = SimConfig(display=4, E_dc=case["E_dc"], E_omega=case["E_omega"],
@@ -111,60 +111,3 @@ def test_stepper_tracks_transcription(case):
     # dc-only: no averaging samples ever
     if case["E_omega"] == 0:
         assert float(state.av[0]) == 0 == oracle.av_data[0]
-
-
-@pytest.mark.parametrize("case", [_case(s) for s in (5, 6)]
-                         + [EDGE_CASES[2], EDGE_CASES[3]])
-def test_pallas_kernel_tracks_xla_fuzz(case):
-    """The megakernel across random + corner shapes (N=1, minimum grid):
-    tiny shapes exercise the rolls, masks, edge column and xs-capacity
-    padding differently from the fixed equality-test config.  Split into
-    odd-length chunks so parity handling and table padding both fire."""
-    from slb2d_tpu.ops.stepper_pallas import make_pallas_runner
-
-    cfg = SimConfig(display=4, E_dc=case["E_dc"], E_omega=case["E_omega"],
-                    omega=case["omega"], mu=case["mu"], alpha=case["alpha"],
-                    n_harmonics=case["N"], phi_y_min=case["PhiYmin"],
-                    phi_y_max=case["PhiYmax"], B=case["B"], t_start=0.01,
-                    g_grid=case["M"], dt=case["dt"], quiet=True)
-    model = SuperlatticeModel(cfg)
-    c = stencil.consts_from_model(model)
-    runner = make_pallas_runner(c, model, av_enabled=True)
-    out = runner(stencil.bootstrap_state(c, model), 23)
-    out = runner(out, 37)
-
-    step = stencil.make_step_fn(c, av_enabled=True, exact_trig=False)
-    ref = jax.jit(lambda s: jax.lax.scan(step, s, None, length=60)[0])(
-        stencil.bootstrap_state(c, model))
-    for f in ("a", "b", "a_hs", "b_hs", "av"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(out, f)), np.asarray(getattr(ref, f)),
-            rtol=1e-4, atol=1e-7, err_msg=f)
-
-
-@pytest.mark.parametrize("case", [_case(s) for s in (7, 8)]
-                         + [EDGE_CASES[2], EDGE_CASES[3]])
-def test_stream_kernel_tracks_xla_fuzz(case):
-    """The HBM-streaming engine across random + corner shapes: tiny grids
-    make every tile a clamped-halo/dup corner, and odd chunk lengths
-    exercise partial launches and the lax.cond padding skip."""
-    from slb2d_tpu.ops.stepper_stream import make_stream_runner
-
-    cfg = SimConfig(display=4, E_dc=case["E_dc"], E_omega=case["E_omega"],
-                    omega=case["omega"], mu=case["mu"], alpha=case["alpha"],
-                    n_harmonics=case["N"], phi_y_min=case["PhiYmin"],
-                    phi_y_max=case["PhiYmax"], B=case["B"], t_start=0.01,
-                    g_grid=case["M"], dt=case["dt"], quiet=True)
-    model = SuperlatticeModel(cfg)
-    c = stencil.consts_from_model(model)
-    runner = make_stream_runner(c, model, av_enabled=True, K=8, W=128)
-    out = runner(stencil.bootstrap_state(c, model), 23)
-    out = runner(out, 37)
-
-    step = stencil.make_step_fn(c, av_enabled=True, exact_trig=False)
-    ref = jax.jit(lambda s: jax.lax.scan(step, s, None, length=60)[0])(
-        stencil.bootstrap_state(c, model))
-    for f in ("a", "b", "a_hs", "b_hs", "av"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(out, f)), np.asarray(getattr(ref, f)),
-            rtol=1e-4, atol=1e-7, err_msg=f)

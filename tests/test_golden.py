@@ -75,6 +75,30 @@ def test_display4_vs_reference(tmp_path, monkeypatch, gold, dtype, tol, extra):
     assert gh == mh
 
 
+@pytest.mark.parametrize("gold,dtype,tol", [
+    ("d4_base1_f32.txt", "f32", 2e-5),
+    ("d4_base1_f64.txt", "f64", 1e-8),
+])
+def test_cli_base1_vs_reference(tmp_path, monkeypatch, gold, dtype, tol):
+    """BASELINE #1 through the slb2d command line, as a user calls it,
+    against the reference binary's line (tolerances as above)."""
+    from slb2d_tpu import cli
+
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["display=4", "E_dc=1.0", "E_omega=2.0", "omega=1.0",
+                     "mu=1.0", "alpha=0.9495", "n-harmonics=20",
+                     "PhiYmin=-10", "PhiYmax=10", "B=0.1", "t-max=10",
+                     "g-grid=200", "dt=1e-3", f"dtype={dtype}",
+                     "o=out.txt"]) == 0
+    gold_text = read_gold(gold)
+    mine = (tmp_path / "out.txt").read_text()
+    (g,), (m,) = d4_values(gold_text), d4_values(mine)
+    np.testing.assert_allclose(m, g, rtol=tol,
+                               atol=8e-6 if dtype == "f32" else tol * 0.1)
+    assert ([l for l in gold_text.splitlines() if l.startswith("#")]
+            == [l for l in mine.splitlines() if l.startswith("#")])
+
+
 def test_display3_vs_reference(tmp_path, monkeypatch):
     gold = read_gold("d3_tiny_f64.txt.gz").splitlines()
     mine = run_sim(tmp_path, monkeypatch, display=3, dtype="f64",
@@ -132,13 +156,12 @@ def test_display3_f32_vs_reference(tmp_path, monkeypatch):
                                    rtol=2e-4, atol=5e-6)
 
 
-@pytest.mark.parametrize("impl", ["auto", "pallas", "stream"])
+@pytest.mark.parametrize("impl", ["auto", "xla"])
 def test_display77_all_columns_f32_vs_patched_reference(tmp_path,
                                                         monkeypatch, impl):
     """ALL 15 display-77 columns at the PRODUCTION precision (f32)
-    against the pristine-f32 + D1/D2-patch oracle build, on every engine
-    (VERDICT r2 items 2 and 3: the f32 run previously pinned only t and
-    norm, and the pallas engines had no golden coverage at all).
+    against the pristine-f32 + D1/D2-patch oracle build, through both
+    spellings of the engine (the f32 run once pinned only t and norm).
     Tolerance = the measured FMA envelope (DEVIATIONS D7), with the atol
     term for the cancellation-prone v_y columns."""
     gold = [l for l in read_gold("d77_tiny_f32_fixed.txt.gz").splitlines()

@@ -47,16 +47,6 @@ sim = Simulation(SimConfig(display=4, out_file="d4.txt",
                            checkpoint="ck.npz", **COMMON))
 sim.run(repl_stream=io.StringIO("E_dc 1.5 0.1\nexit\n"))
 
-# run 3: the sharded PALLAS STREAM engine (f32, ppermute halos every K
-# steps) across the real process boundary, including a REPL mutation —
-# multi-host + Mosaic-pipeline semantics + collective ordering is where
-# lockstep bugs live (round-3 judge Weak #2).  g-grid=1021 -> MP=1024:
-# 8 shards x 128-column slices (the stream engine's halo quantum).
-PCOMMON = dict(COMMON, dtype="f32", g_grid=1021)
-sim = Simulation(SimConfig(display=4, out_file="d4p.txt", impl="pallas",
-                           **PCOMMON))
-sim.run(repl_stream=io.StringIO("B 0.15 0.1\nexit\n"))
-assert sim._engine == "stream-shard", sim._engine
 print("worker", proc_id, "done")
 '''
 
@@ -133,19 +123,3 @@ def test_two_process_spatial_matches_unsharded(tmp_path, monkeypatch):
 
     # checkpoint written once, by process 0
     assert os.path.exists(outdir / "ck.npz")
-
-    # sharded stream engine across the process boundary vs the SAME
-    # engine on a single-process 8-device mesh: bit-level agreement up to
-    # cross-process psum reduction ordering (f32)
-    PCOMMON = dict(COMMON, dtype="f32", g_grid=1021)
-    sim = Simulation(SimConfig(display=4, out_file="d4p.txt",
-                               impl="pallas", shards=8, **PCOMMON))
-    assert sim._engine == "stream-shard"
-    sim.run(repl_stream=_io.StringIO("B 0.15 0.1\nexit\n"))
-    mh = [np.array(l.split(), float)
-          for l in open(outdir / "d4p.txt") if not l.startswith("#")]
-    rf = [np.array(l.split(), float)
-          for l in open("d4p.txt") if not l.startswith("#")]
-    assert len(mh) == len(rf) == 2
-    for a, b in zip(mh, rf):
-        np.testing.assert_allclose(a, b, rtol=5e-6, atol=1e-8)

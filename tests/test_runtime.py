@@ -3,7 +3,6 @@ plus display-9 strobe semantics (GPU-only in the reference, so pinned by
 construction here: schedule emission at drive-period wraparound +
 accumulating frames)."""
 
-import io
 import os
 
 import numpy as np
@@ -156,7 +155,7 @@ def test_schedule_chunk_boundaries_exact():
 
 def test_display77_batched_equals_per_emission(tmp_path, monkeypatch):
     """The batched on-device emission path and the per-emission chunk-cut
-    path (used by the pallas engine) must produce identical display-77
+    path must produce identical display-77
     output."""
     # f64: device-scan vs host-numpy summation orders agree to 1e-15
     # there, so any tolerance hit is a logic bug, not float noise
@@ -287,78 +286,26 @@ def _lines(path):
             if l and not l.startswith("#")]
 
 
-def test_driver_pallas_engine_matches_xla(tmp_path, monkeypatch):
-    """The full Simulation driver on impl=pallas (interpreted on CPU) must
-    match impl=xla through a display-4 run INCLUDING a REPL mutation —
-    covering chunk parity handling, the SMEM params update_consts path,
-    and per-chunk xs feeding.  f32; tolerance covers the kernel's
-    reciprocal-vs-division ulp class."""
+def test_driver_warmup_compiles_every_runner(tmp_path, monkeypatch):
+    """warmup() compiles one runner per distinct chunk length of the
+    schedule (odd chunk: a full and a remainder length), and the
+    production run then adds ZERO compiles."""
     monkeypatch.chdir(tmp_path)
-    script = "E_dc 1.5 0.05\nexit\n"
-    outs = {}
-    for impl in ("xla", "pallas"):
-        cfg = SimConfig(**{**BASE, "t_start": 0.1, "impl": impl,
-                           "read_from": "stdin",
-                           "steps_per_chunk": 37,   # odd: parities flip
-                           "out_file": f"{impl}.txt"})
-        sim = Simulation(cfg)
-        sim.run(repl_stream=io.StringIO(script))
-        outs[impl] = [np.array(l.split(), float)
-                      for l in _lines(f"{impl}.txt")]
-    assert len(outs["xla"]) == len(outs["pallas"]) == 2
-    for vx, vp in zip(outs["xla"], outs["pallas"]):
-        np.testing.assert_allclose(vp, vx, rtol=5e-4, atol=1e-6)
-
-
-def test_driver_pallas_engine_display7_frames(tmp_path, monkeypatch):
-    """Movie mode through the pallas driver path: same frame cadence and
-    close frame values as the xla engine (frame batching on)."""
-    import glob
-    for impl in ("xla", "pallas"):
-        d = tmp_path / impl
-        d.mkdir()
-        monkeypatch.chdir(d)
-        cfg = SimConfig(**{**BASE, "display": 7, "t_start": 0.05,
-                           "impl": impl})
-        Simulation(cfg).run()
-    fx = sorted(glob.glob(str(tmp_path / "xla" / "frame*.data")))
-    fp = sorted(glob.glob(str(tmp_path / "pallas" / "frame*.data")))
-    assert len(fx) == len(fp) >= 3
-    assert [os.path.basename(p) for p in fx] == \
-           [os.path.basename(p) for p in fp]
-    rx = np.array([l.split() for l in _lines(fx[-1])], float)
-    rp = np.array([l.split() for l in _lines(fp[-1])], float)
-    np.testing.assert_allclose(rp, rx, rtol=5e-4, atol=1e-6)
-
-
-def test_driver_warmup_compiles_one_pallas_kernel(tmp_path, monkeypatch):
-    """warmup() primes the padded xs capacity to the schedule's largest
-    chunk, then one executable serves every (length, parity): the
-    production run must add ZERO compiles after warmup."""
-    monkeypatch.chdir(tmp_path)
-    cfg = SimConfig(**{**BASE, "t_start": 0.1, "impl": "pallas",
-                       "steps_per_chunk": 37, "out_file": "w.txt"})
+    cfg = SimConfig(**{**BASE, "t_start": 0.1, "steps_per_chunk": 37,
+                       "out_file": "w.txt"})
     sim = Simulation(cfg)
     sim.warmup()
-    runner = sim._pallas_runner()
-    if not hasattr(runner._jit_run, "_cache_size"):   # private jax API
+    lengths = {ch.n_steps for ch in schedule.iter_chunks(
+        **sim._schedule_kwargs())}
+    assert set(sim._runners) == lengths and len(lengths) >= 2
+    runners = dict(sim._runners)
+    if not all(hasattr(r, "_cache_size") for r in runners.values()):
         pytest.skip("jax private _cache_size unavailable")
-    assert runner._jit_run._cache_size() == 1
+    sizes = {n: r._cache_size() for n, r in runners.items()}
+    assert all(v == 1 for v in sizes.values())
     sim.run()
-    assert runner._jit_run._cache_size() == 1
-
-
-def test_auto_impl_vmem_bound():
-    """fits_vmem picks the engine behind impl=pallas: the VMEM-resident
-    megakernel inside its measured budget, the HBM-streaming kernel
-    beyond it (routing asserted in tests/test_stream.py)."""
-    from slb2d_tpu.ops.stepper_pallas import fits_vmem
-
-    assert fits_vmem(104, 4096)            # flagship N=100 M=4000
-    assert fits_vmem(104, 9088)            # M~9000 still resident
-    # 104x12032 measured OOM on v5e (113.39 MB vs the 100 MB limit)
-    assert not fits_vmem(104, 12032)
-    assert not fits_vmem(104, 32128)       # M~32000 -> stream engine
+    assert {n: r._cache_size() for n, r in runners.items()} == sizes
+    assert sim._runners == runners
 
 
 def test_progress_meter_cadence_matches_c(tmp_path, monkeypatch, capsys):
@@ -386,3 +333,55 @@ def test_progress_meter_cadence_matches_c(tmp_path, monkeypatch, capsys):
                 for k in range(299, n, 300)]
     assert n > 900            # the config crosses several meter periods
     assert meter == expected
+
+
+@pytest.mark.parametrize("N,M", [(6, 29), (20, 200)])
+def test_device_frame_reconstruction_matches_host(N, M):
+    """The device reconstruction (taken on the GPU) against the host
+    float64 one, on an evolved float32 state: float32 products summed on
+    the device stay within a few f32 ulps of the largest |f|."""
+    import jax
+
+    from slb2d_tpu.models.superlattice import SuperlatticeModel
+    from slb2d_tpu.ops import frames, stencil
+
+    model = SuperlatticeModel(SimConfig(**{**BASE, "display": 7,
+                                           "n_harmonics": N, "g_grid": M}))
+    c = stencil.consts_from_model(model)
+    step = stencil.make_step_fn(c, av_enabled=False, exact_trig=False)
+    st = jax.jit(lambda s: jax.lax.scan(step, s, None, length=50)[0])(
+        stencil.bootstrap_state(c, model))
+    a, b = np.asarray(st.a), np.asarray(st.b)
+    assert a.dtype == np.float32
+    recon = frames.FrameReconstructor(model)
+    host = recon.reconstruct(a, b, 1, M + 2)
+    dev, norm_sum = recon.reconstruct_on_device(st.a, st.b, 1, M + 2)
+    np.testing.assert_allclose(dev, host, rtol=1e-5,
+                               atol=1e-6 * float(np.max(np.abs(host))))
+    np.testing.assert_allclose(norm_sum, np.dot(a[0].astype(np.float64),
+                                                model.w_norm), rtol=1e-5)
+
+
+@pytest.mark.parametrize("frame_batch", [1, 8])
+def test_driver_device_frames_match_host_frames(tmp_path, monkeypatch,
+                                                frame_batch):
+    """A display-7 movie with frames rebuilt on the device (the GPU plan)
+    writes the same frame files as the host path, up to f32 rounding."""
+    import glob
+
+    cfg = SimConfig(**{**BASE, "display": 7, "t_start": 0.05,
+                       "frame_start": 0.02, "frame_batch": frame_batch,
+                       "out_file": "o.txt"})
+    for name, dev in (("dev", True), ("host", False)):
+        os.makedirs(tmp_path / name)
+        monkeypatch.chdir(tmp_path / name)
+        sim = Simulation(cfg)
+        sim.plan = sim.plan._replace(device_frames=dev)
+        sim.run()
+    names = sorted(os.path.basename(p)
+                   for p in glob.glob(str(tmp_path / "dev" / "frame*")))
+    assert len(names) >= 3
+    for n in names:
+        d, h = (np.loadtxt(tmp_path / k / n) for k in ("dev", "host"))
+        np.testing.assert_allclose(d, h, rtol=1e-5,
+                                   atol=1e-6 * float(np.max(np.abs(h))))

@@ -83,11 +83,16 @@ def test_shards_repl_round(tmp_path, monkeypatch):
 
 
 def test_shards_pallas_needs_f32():
-    # shards + impl=pallas is now legal (sharded stream engine) but the
-    # pallas engines remain float32-only
-    cfg = cfgmod.parse_cmd(["display=4", *ARGS, "shards=4", "impl=pallas"])
-    with pytest.raises(ValueError, match="dtype=f32"):
-        Simulation(cfg)
+    # the Pallas engines are gone: impl=pallas is refused when parsed (in
+    # either dtype, sharded or not), never silently run on the XLA scan
+    for extra in ([], ["dtype=f32"], ["dtype=f64"]):
+        with pytest.raises(cfgmod.ConfigError):
+            cfgmod.parse_cmd(["display=4", *ARGS, "shards=4", "impl=pallas",
+                              *extra])
+    with pytest.raises(ValueError, match="impl="):
+        Simulation(cfgmod.SimConfig(**{
+            **vars(cfgmod.parse_cmd(["display=4", *ARGS, "shards=4"])),
+            "impl": "pallas"}))
 
 
 def test_shards_indivisible_raises():

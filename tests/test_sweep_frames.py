@@ -117,7 +117,7 @@ def test_initial_states_buffers_are_donation_safe():
     """Every array in the batched initial State must own a distinct
     buffer: callers may donate the whole State (bench.py's sweep bench
     does), and one buffer aliased into two donated arguments is rejected
-    by the TPU runtime (regression: hs_edge_a/hs_edge_b shared one
+    by the device runtime (regression: hs_edge_a/hs_edge_b shared one
     zeros array)."""
     sw = ParameterSweep(SimConfig(**BASE), {"E_dc": np.array([0.5, 1.5])})
     st = sw._initial_states()
